@@ -1,30 +1,49 @@
-"""bignn_tpu — a TPU-native bi-level graph neural network framework.
+"""Former name of the :mod:`bignn` package, kept so that existing imports and
+``python -m <this package>.run`` keep working. New code imports ``bignn``.
 
-Re-implements, TPU-first, the capabilities of the reference
-codeKgu/BiLevel-Graph-Neural-Network (BI-GNN, arXiv:2006.14002): an inner GNN
-encodes each small "inner" graph (e.g. a drug molecule), a segment-pool readout
-produces one embedding per inner graph, an outer GNN propagates those
-embeddings over the interaction graph, and a pair scorer predicts links
-(e.g. drug-drug interactions) against sampled negatives.
-
-NOTE ON CITATIONS: the reference mount `/root/reference/` is empty in this
-environment (see SURVEY.md header), so reference citations in this package
-point at SURVEY.md sections / BASELINE.json lines, which reconstruct the
-reference's structure, instead of reference file:line.
-
-Architecture (TPU-first, not a port — SURVEY.md §1.2):
-  - sparse/    static-shape padded CSR / sorted-edge formats (SURVEY T1)
-  - ops/       sparse kernels: gather, segment reduce, SpMM, SDDMM
-               (XLA path + Pallas TPU path) (SURVEY T2, BASELINE.json:5)
-  - models/    pure-pytree GNN modules: GCN/GIN/GAT convs, readouts,
-               edge scorer, losses (SURVEY T3)
-  - data/      array-based dataset schema, synthetic generators, samplers
-               (SURVEY T4)
-  - train/     jit'd train step, optax, eval, checkpointing (SURVEY T5)
-  - parallel/  mesh, data parallelism, edge partitioner, halo exchange
-               (SURVEY T6 / P1-P2)
-  - oracle/    NumPy reference implementation for parity tests (SURVEY T8)
-  - bench/     edges/s/chip harness (SURVEY T7)
+Every ``<this package>.<sub>`` import resolves to the very module object of
+``bignn.<sub>`` (one copy of each module and its state), and ``-m`` runs
+that module's code.
 """
 
-__version__ = "0.1.0"
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+
+from bignn import __version__  # noqa: F401
+
+_NEW = "bignn"
+
+
+def _new_name(fullname: str) -> str:
+    return _NEW + fullname[len(__name__):]
+
+
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    def find_spec(self, fullname, path=None, target=None):
+        if not fullname.startswith(__name__ + "."):
+            return None
+        real = importlib.util.find_spec(_new_name(fullname))
+        if real is None:
+            return None
+        return importlib.util.spec_from_loader(
+            fullname, self, origin=real.origin,
+            is_package=real.submodule_search_locations is not None)
+
+    def create_module(self, spec):
+        module = importlib.import_module(_new_name(spec.name))
+        spec.loader_state = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # the import system gave the module the alias spec; give it back
+        # its own
+        module.__spec__ = module.__spec__.loader_state
+
+    def get_code(self, fullname):  # used by ``python -m``
+        real = importlib.util.find_spec(_new_name(fullname))
+        return real.loader.get_code(real.name)
+
+
+sys.meta_path.insert(0, _Alias())

@@ -3,10 +3,9 @@
 
 Measures the P2 distributed train step's aggregate edges/s on meshes of
 increasing 'graph' width over the attached devices and reports efficiency
-relative to the single-device run. On this environment only one real TPU chip
-is attached (SURVEY.md §6), so multi-chip rows appear when run on a pod
-slice; `--fake-cpu N` exercises the harness logic on N fake CPU devices
-(numbers are NOT hardware-representative there).
+relative to the single-device run, over the GPUs of one host;
+`--fake-cpu N` exercises the harness logic on N fake CPU devices (numbers
+are NOT hardware-representative there).
 
 Usage:
   python scripts/bench_scaling.py [--fake-cpu 8] [--steps 10]
@@ -52,9 +51,9 @@ def main():
     import numpy as np
     import optax
 
-    from bignn_tpu.data import load_dataset
-    from bignn_tpu.models import BiGNN, BiGNNConfig
-    from bignn_tpu.parallel import (
+    from bignn.data import load_dataset
+    from bignn.models import BiGNN, BiGNNConfig
+    from bignn.parallel import (
         build_outer_partition,
         build_sharded_inner,
         device_put_plan,
@@ -78,7 +77,7 @@ def main():
         # own batch inside shard_map (train_chunk_device); per-chip rate
         # should stay flat as dp grows (only the gradient all-reduce rides
         # the interconnect).
-        from bignn_tpu.train import MinibatchTrainer, TrainConfig
+        from bignn.train import MinibatchTrainer, TrainConfig
 
         base_rate = None
         results = []
@@ -129,7 +128,7 @@ def main():
         step = make_p2_train_step(model, optimizer, mesh, ds.num_drugs,
                                   overlap=args.overlap)
         opt_state = optimizer.init(params)
-        inner_d, esrc, edst, ew, sidx, sperm, ssrt = device_put_plan(mesh, plan, inner)
+        inner_d, esrc, edst, ew, sidx = device_put_plan(mesh, plan, inner)
         pos = jnp.asarray(rng.integers(0, ds.num_drugs, (args.batch, 2)), jnp.int32)
         mask = jnp.ones(args.batch, jnp.float32)
         key = jax.random.key(1)
@@ -143,13 +142,13 @@ def main():
 
         with mesh:
             p_, o_, loss = step(params, opt_state, key, pos, mask,
-                                inner_d, esrc, edst, ew, sidx, sperm, ssrt)
+                                inner_d, esrc, edst, ew, sidx)
             loss.block_until_ready()
             t0 = time.perf_counter()
             for _ in range(args.steps):
                 key, sub = jax.random.split(key)
                 p_, o_, loss = step(p_, o_, sub, pos, mask,
-                                    inner_d, esrc, edst, ew, sidx, sperm, ssrt)
+                                    inner_d, esrc, edst, ew, sidx)
             _ = float(loss)
         dt = (time.perf_counter() - t0) / args.steps
         rate = edges_per_step / dt

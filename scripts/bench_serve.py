@@ -1,11 +1,11 @@
-"""Serving micro-bench at config-#4 scale (VERDICT r4 item 8).
+"""Serving micro-bench at config-#4 scale.
 
 Builds a Scorer over the 100K-drug synthetic (fresh-init params — timing
 does not depend on trained weights): offline full-propagation embed, then
 online top-k latency single/batched, with and without the known-partner
-exclusion CSR. Numbers land in the serve.py docstring.
+exclusion CSR.
 
-Run on the TPU: python scripts/bench_serve.py [--num-drugs 100000]
+Run on the GPU: python scripts/bench_serve.py [--num-drugs 100000]
 """
 from __future__ import annotations
 
@@ -29,9 +29,9 @@ def main():
     import jax
     import numpy as np
 
-    from bignn_tpu.config import get_config
-    from bignn_tpu.models import BiGNN
-    from bignn_tpu.serve import Scorer
+    from bignn.config import get_config
+    from bignn.models import BiGNN
+    from bignn.serve import Scorer
     from scripts.p2_scale_stats import load_ds, load_scaled_ds
 
     ds = (load_ds() if args.num_drugs == 100_000

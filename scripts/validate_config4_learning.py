@@ -1,8 +1,7 @@
-"""Paired device-vs-host learning validation at config #4 (VERDICT r3
-item 2): train the registry config4 model through BOTH sampling estimators
-at an IDENTICAL step budget and seed, logging per-epoch loss + val AUC/AP
-and the final test metrics for each. The committed artifact is
-docs/CONFIG4_LEARNING_r4.txt.
+"""Paired device-vs-host learning validation at config #4: train the
+registry config4 model through BOTH sampling estimators at an IDENTICAL
+step budget and seed, logging per-epoch loss + val AUC/AP and the final
+test metrics for each.
 
 The two pipelines are separate-but-equivalent estimators (different RNG
 streams and packing order — data/device_sampler.py); equivalence here means
@@ -10,7 +9,7 @@ the curves track and the final AUCs agree within noise, not bit-equality.
 CI covers the same property at small scale
 (tests/test_device_vs_host_learning.py).
 
-Run on the TPU: python scripts/validate_config4_learning.py \
+Run on the GPU: python scripts/validate_config4_learning.py \
     [--steps-per-epoch 500] [--epochs 4]
 """
 from __future__ import annotations
@@ -32,16 +31,15 @@ def main():
     p.add_argument("--exact-eval", action="store_true",
                    help="additionally run FULL-propagation (estimator-free) "
                         "val/test eval after training and report it next to "
-                        "the sampled estimator, with wall time (VERDICT r4 "
-                        "item 2)")
+                        "the sampled estimator, with wall time")
     p.add_argument("--modes", default="device,host",
                    help="comma list: device,host")
     args = p.parse_args()
 
-    from bignn_tpu.config import get_config
-    from bignn_tpu.data.datasets import load_npz_cache
-    from bignn_tpu.models import BiGNN
-    from bignn_tpu.train import MinibatchTrainer
+    from bignn.config import get_config
+    from bignn.data.datasets import load_npz_cache
+    from bignn.models import BiGNN
+    from bignn.train import MinibatchTrainer
 
     cache = _os.path.join(_os.path.dirname(__file__), "..", ".cache",
                           "config4_100000.npz")

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bignn_tpu.data import make_synthetic_ddi, prepare_device_data
-from bignn_tpu.models import BiGNN, BiGNNConfig
-from bignn_tpu.train import Trainer, TrainConfig
+from bignn.data import make_synthetic_ddi, prepare_device_data
+from bignn.models import BiGNN, BiGNNConfig
+from bignn.train import Trainer, TrainConfig
 
 
 @pytest.fixture(scope="module")

@@ -15,10 +15,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import bignn_tpu.ops as ops
-from bignn_tpu.data import make_synthetic_ddi, prepare_device_data
-from bignn_tpu.models import BiGNN, BiGNNConfig
-from bignn_tpu.sparse.bucketing import bucket_graphs
+import bignn.ops as ops
+from bignn.data import make_synthetic_ddi, prepare_device_data
+from bignn.models import BiGNN, BiGNNConfig
+from bignn.sparse.bucketing import bucket_graphs
 
 
 @pytest.fixture(scope="module")
@@ -61,14 +61,14 @@ def test_block_diag_spmm_matches_sparse(batch):
     dense = ops.block_diag_spmm(jnp.asarray(batch.block_adj), x)
     sparse = ops.spmm_sorted_coo(
         x, jnp.asarray(batch.edge_src), jnp.asarray(batch.edge_dst),
-        jnp.asarray(batch.edge_weight), batch.node_cap, backend="xla")
+        jnp.asarray(batch.edge_weight), batch.node_cap)
     np.testing.assert_allclose(np.asarray(dense), np.asarray(sparse),
                                rtol=1e-5, atol=1e-5)
     # unweighted (GIN) via multiplicity blocks
     dense_u = ops.block_diag_spmm(jnp.asarray(batch.block_cnt), x)
     sparse_u = ops.spmm_sorted_coo(
         x, jnp.asarray(batch.edge_src), jnp.asarray(batch.edge_dst),
-        None, batch.node_cap, backend="xla")
+        None, batch.node_cap)
     np.testing.assert_allclose(np.asarray(dense_u), np.asarray(sparse_u),
                                rtol=1e-5, atol=1e-5)
 
@@ -85,7 +85,7 @@ def test_block_diag_spmm_grad_matches_sparse(batch):
     def f_sparse(x):
         y = ops.spmm_sorted_coo(
             x, jnp.asarray(batch.edge_src), jnp.asarray(batch.edge_dst),
-            jnp.asarray(batch.edge_weight), batch.node_cap, backend="xla")
+            jnp.asarray(batch.edge_weight), batch.node_cap)
         return (y ** 2).sum()
 
     np.testing.assert_allclose(
@@ -115,7 +115,7 @@ def test_model_forward_parity_dense_vs_sparse(ds):
 
 def test_block_dense_disabled_above_cap(ds):
     b = bucket_graphs(ds.molecules, max_buckets=1).batches[0]
-    from bignn_tpu.sparse.formats import build_padded_batch
+    from bignn.sparse.formats import build_padded_batch
 
     small = build_padded_batch(
         list(ds.molecules[:10]), node_cap=384, edge_cap=1024,

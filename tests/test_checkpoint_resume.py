@@ -1,4 +1,4 @@
-"""Exact checkpoint-resume (SURVEY.md §5 checkpoint row; VERDICT r1 item 7).
+"""Exact checkpoint-resume (SURVEY.md §5 checkpoint row).
 
 Kill-and-resume equality: training interrupted at epoch k and resumed from
 the checkpoint must produce the SAME loss trajectory and final metrics as an
@@ -7,14 +7,17 @@ device randomness (derived per (seed, epoch), not carried state) included.
 """
 
 import dataclasses
+import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bignn_tpu.data import load_dataset
-from bignn_tpu.models import BiGNN, BiGNNConfig
-from bignn_tpu.train import MinibatchTrainer, Trainer, TrainConfig
-from bignn_tpu.train.checkpoint import CheckpointManager
+from bignn.data import load_dataset
+from bignn.models import BiGNN, BiGNNConfig
+from bignn.train import MinibatchTrainer, Trainer, TrainConfig
+from bignn.train.checkpoint import CheckpointManager
 
 
 @pytest.fixture(scope="module")
@@ -28,7 +31,7 @@ def _losses(result):
 
 
 def test_trainer_kill_and_resume_matches_uninterrupted(ds, tmp_path):
-    from bignn_tpu.data import prepare_device_data
+    from bignn.data import prepare_device_data
 
     model = BiGNN(BiGNNConfig.config1(feat_dim=ds.feat_dim))
     data = prepare_device_data(ds)
@@ -105,7 +108,7 @@ def test_device_sample_kill_and_resume_matches_uninterrupted(ds, tmp_path):
 
 
 def test_resume_with_empty_dir_starts_fresh(ds, tmp_path):
-    from bignn_tpu.data import prepare_device_data
+    from bignn.data import prepare_device_data
 
     model = BiGNN(BiGNNConfig.config1(feat_dim=ds.feat_dim))
     data = prepare_device_data(ds)
@@ -114,3 +117,26 @@ def test_resume_with_empty_dir_starts_fresh(ds, tmp_path):
     _, res = Trainer(model, data, cfg).fit(ckpt=ck)
     ck.close()
     assert [r["epoch"] for r in res["history"]] == [0]
+
+
+def test_npz_checkpoint_roundtrip_and_retention(tmp_path):
+    """The .npz manager restores the exact pytree (optax state included)
+    with a template, nested dicts without one, and keeps max_to_keep."""
+    import optax
+
+    params = {"w": jnp.arange(6.0).reshape(2, 3), "b": {"x": jnp.ones(4)}}
+    opt_state = optax.adam(1e-3).init(params)
+    state = {"params": params, "opt_state": opt_state,
+             "meta": {"epoch": 3, "best_val_auc": 0.5}}
+    ck = CheckpointManager(str(tmp_path / "rt"), max_to_keep=2)
+    for step in range(4):
+        ck.save_state(step, state)
+    assert ck.steps() == [2, 3] and ck.latest_step() == 3
+    assert not [f for f in os.listdir(ck.directory) if "tmp" in f]
+    got = ck.restore_state(state)
+    assert jax.tree.structure(got) == jax.tree.structure(state)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(state)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    raw = ck.restore()
+    np.testing.assert_array_equal(raw["params"]["w"], np.asarray(params["w"]))
+    assert int(raw["meta"]["epoch"]) == 3

@@ -1,7 +1,7 @@
 """Dense outer-graph path parity (models/convs.py dense=...).
 
 Small DDI graphs (DrugBank ~1.7K drugs, ~9% edge density) run the outer
-convs through dense [N, N] matmuls / masked dense softmax on the MXU instead
+convs through dense [N, N] matmuls / masked dense softmax instead
 of sparse segment ops. These tests pin the dense path to the sparse one —
 forward and gradients — including duplicate edges (multiplicity) and
 isolated nodes (empty softmax segments).
@@ -14,8 +14,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from bignn_tpu.models.convs import parse_conv
-from bignn_tpu.sparse.formats import build_outer_graph
+from bignn.models.convs import parse_conv
+from bignn.sparse.formats import build_outer_graph
 
 
 def _random_graph(n=60, e=400, seed=0, with_duplicates=False, isolated=True):
@@ -48,8 +48,7 @@ def test_dense_matches_sparse_fwd_and_grad(spec, dup):
     x = jax.random.normal(jax.random.key(1), (n, 24), jnp.float32)
 
     def run(g, dense):
-        kw = dict(src_perm=jnp.asarray(g.edge_src_perm),
-                  src_sorted=jnp.asarray(g.edge_src_sorted))
+        kw = {}
         if dense:
             kw["dense"] = (jnp.asarray(g.dense_adj), jnp.asarray(g.dense_cnt))
         return conv.apply(params, x, jnp.asarray(g.edge_src),
@@ -62,8 +61,7 @@ def test_dense_matches_sparse_fwd_and_grad(spec, dup):
 
     def loss(p, dense):
         g = dense_g if dense else sparse_g
-        kw = dict(src_perm=jnp.asarray(g.edge_src_perm),
-                  src_sorted=jnp.asarray(g.edge_src_sorted))
+        kw = {}
         if dense:
             kw["dense"] = (jnp.asarray(g.dense_adj), jnp.asarray(g.dense_cnt))
         out = conv.apply(p, x, jnp.asarray(g.edge_src), jnp.asarray(g.edge_dst),
@@ -96,9 +94,7 @@ def test_isolated_nodes_no_self_loops():
         if dense:
             kw["dense"] = (jnp.asarray(g.dense_adj), jnp.asarray(g.dense_cnt))
         return conv.apply(p, x, jnp.asarray(g.edge_src), jnp.asarray(g.edge_dst),
-                          jnp.asarray(g.edge_weight), g.num_nodes,
-                          src_perm=jnp.asarray(g.edge_src_perm),
-                          src_sorted=jnp.asarray(g.edge_src_sorted), **kw)
+                          jnp.asarray(g.edge_weight), g.num_nodes, **kw)
 
     out_s = run(params, sparse_g, False)
     out_d = run(params, dense_g, True)

@@ -1,4 +1,4 @@
-"""Device-vs-host sampling estimators LEARN equivalently (VERDICT r3 item 2).
+"""Device-vs-host sampling estimators LEARN equivalently.
 
 The two pipelines are separate-but-equivalent estimators (different RNG
 streams and packing order — device_sampler.py docstring); this gate trains
@@ -7,22 +7,22 @@ latent-structure synthetic and requires (a) both clear an above-chance AUC
 bar and (b) their final AUCs agree within a tolerance. If the device
 sampler's class-packed layout, truncation order, or edge-only-hop
 calibration biased sampling in a way that hurts learning, (a)/(b) catch it.
-The flagship-scale paired curves live in docs/CONFIG4_LEARNING_r4.txt
-(scripts/validate_config4_learning.py, run on the TPU).
+The flagship-scale paired curves come from
+scripts/validate_config4_learning.py, run on the GPU.
 """
 
 import numpy as np
 
-from bignn_tpu.data import make_synthetic_ddi
-from bignn_tpu.models import BiGNN, BiGNNConfig
-from bignn_tpu.train import MinibatchTrainer, TrainConfig
+from bignn.data import make_synthetic_ddi
+from bignn.models import BiGNN, BiGNNConfig
+from bignn.train import MinibatchTrainer, TrainConfig
 
 
 def test_device_vs_host_learning():
     ds = make_synthetic_ddi(num_drugs=150, feat_dim=16, avg_degree=10.0,
                             min_atoms=4, max_atoms=12, latent_dim=4, seed=7)
     model = BiGNN(BiGNNConfig.full_bignn(feat_dim=16, dim=32, heads=2))
-    # r5 (VERDICT r4 weak #3): THREE seeds averaged per mode and a +-0.03
+    # r5: THREE seeds averaged per mode and a +-0.03
     # gate — a single-seed +-0.06 tolerance could hide a device-estimator
     # bias eating a third of the learnable signal (~0.13 above chance).
     # Per-seed spread is real (host seeds measured 0.610-0.713); the

@@ -6,10 +6,10 @@ import jax
 import numpy as np
 import pytest
 
-from bignn_tpu.data import make_synthetic_ddi
-from bignn_tpu.models import BiGNN, BiGNNConfig
-from bignn_tpu.parallel import make_mesh
-from bignn_tpu.train.trainer import MinibatchTrainer, TrainConfig
+from bignn.data import make_synthetic_ddi
+from bignn.models import BiGNN, BiGNNConfig
+from bignn.parallel import make_mesh
+from bignn.train.trainer import MinibatchTrainer, TrainConfig
 
 
 @pytest.fixture(scope="module")

@@ -7,9 +7,9 @@ import numpy as np
 import optax
 import pytest
 
-from bignn_tpu.data import make_synthetic_ddi, prepare_device_data
-from bignn_tpu.models import BiGNN, BiGNNConfig
-from bignn_tpu.parallel import dp_train_step_fn, make_mesh, shard_pairs
+from bignn.data import make_synthetic_ddi, prepare_device_data
+from bignn.models import BiGNN, BiGNNConfig
+from bignn.parallel import dp_train_step_fn, make_mesh, shard_pairs
 
 
 @pytest.fixture(scope="module")

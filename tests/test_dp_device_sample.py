@@ -8,11 +8,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bignn_tpu.data import make_synthetic_ddi
-from bignn_tpu.models import BiGNN, BiGNNConfig
-from bignn_tpu.models.loss import bce_with_logits_elementwise
-from bignn_tpu.parallel import make_mesh
-from bignn_tpu.train import MinibatchTrainer, TrainConfig
+from bignn.data import make_synthetic_ddi
+from bignn.models import BiGNN, BiGNNConfig
+from bignn.models.loss import bce_with_logits_elementwise
+from bignn.parallel import make_mesh
+from bignn.train import MinibatchTrainer, TrainConfig
 
 
 @pytest.fixture(scope="module")

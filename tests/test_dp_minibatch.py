@@ -1,5 +1,5 @@
-"""Data-parallel minibatch trainer correctness (SURVEY.md §2.3 P1 x §2.4 T4,
-VERDICT round-1 item 4): the dp-sharded hierarchical step on N fake devices
+"""Data-parallel minibatch trainer correctness (SURVEY.md §2.3 P1 x §2.4
+T4): the dp-sharded hierarchical step on N fake devices
 must equal a single-device step over the union of the same N batches."""
 
 import jax
@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bignn_tpu.data import make_synthetic_ddi
-from bignn_tpu.models import BiGNN, BiGNNConfig
-from bignn_tpu.models.loss import bce_with_logits_elementwise
-from bignn_tpu.parallel import make_mesh
-from bignn_tpu.train.trainer import MinibatchTrainer, TrainConfig
+from bignn.data import make_synthetic_ddi
+from bignn.models import BiGNN, BiGNNConfig
+from bignn.models.loss import bce_with_logits_elementwise
+from bignn.parallel import make_mesh
+from bignn.train.trainer import MinibatchTrainer, TrainConfig
 
 DP = 4
 

@@ -1,5 +1,5 @@
-"""Exact (full-propagation) evaluation for the minibatch trainer
-(VERDICT round-1 item 9): metrics must be estimator-free — identical to the
+"""Exact (full-propagation) evaluation for the minibatch trainer:
+metrics must be estimator-free — identical to the
 full-graph Trainer on the same params, unlike the default fanout-sampled
 evaluation which depends on sampler randomness."""
 
@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bignn_tpu.data import make_synthetic_ddi, prepare_device_data
-from bignn_tpu.models import BiGNN, BiGNNConfig
-from bignn_tpu.train.trainer import MinibatchTrainer, Trainer, TrainConfig
+from bignn.data import make_synthetic_ddi, prepare_device_data
+from bignn.models import BiGNN, BiGNNConfig
+from bignn.train.trainer import MinibatchTrainer, Trainer, TrainConfig
 
 
 @pytest.fixture(scope="module")
@@ -58,9 +58,9 @@ def test_exact_eval_nonresident(setup):
 
 def test_minibatch_eval_device_metrics_match_host(setup):
     """MinibatchTrainer.evaluate now keeps scores on device and uses the
-    exact tie-aware device AUC/AP (VERDICT r2 item 8); values must equal the
+    exact tie-aware device AUC/AP; values must equal the
     host-metric computation on the same scores."""
-    from bignn_tpu.train.metrics import average_precision, roc_auc
+    from bignn.train.metrics import average_precision, roc_auc
 
     ds, model, params = setup
     mb = MinibatchTrainer(model, ds, TrainConfig(batch_size=8, epochs=1),

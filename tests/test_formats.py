@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from bignn_tpu.sparse import (
+from bignn.sparse import (
     COOGraph,
     bucket_graphs,
     build_outer_graph,
@@ -99,7 +99,7 @@ def test_padded_batch_graph_slots_and_override():
     ids and num_graphs_override widens the readout — graph_ids carry the
     slots, graph_n_nodes scatter to slot positions, padding rows carry
     the OVERRIDDEN id, and misuse raises."""
-    from bignn_tpu.sparse.formats import build_padded_batch
+    from bignn.sparse.formats import build_padded_batch
 
     rng = np.random.default_rng(0)
     gs = [_rand_graph(rng, n) for n in (3, 5, 2)]

@@ -1,4 +1,4 @@
-"""GAT/DotAttn-inner fast path (VERDICT round-1 item 5): per-block dense
+"""GAT/DotAttn-inner fast path: per-block dense
 masked attention must match the sparse segment-softmax path, and GAT-inner
 models must ride the quantized resident pipeline end-to-end."""
 
@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bignn_tpu.data import make_synthetic_ddi, prepare_device_data
-from bignn_tpu.models import BiGNN, BiGNNConfig
-from bignn_tpu.models.convs import parse_conv
-from bignn_tpu.sparse.bucketing import bucket_graphs
-from bignn_tpu.train.trainer import MinibatchTrainer, Trainer, TrainConfig
+from bignn.data import make_synthetic_ddi, prepare_device_data
+from bignn.models import BiGNN, BiGNNConfig
+from bignn.models.convs import parse_conv
+from bignn.sparse.bucketing import bucket_graphs
+from bignn.train.trainer import MinibatchTrainer, Trainer, TrainConfig
 
 
 @pytest.fixture(scope="module")
@@ -29,12 +29,11 @@ def test_block_dense_attention_matches_sparse(block_batch, spec):
     b = block_batch
     conv = parse_conv(spec, b.node_feat.shape[1])
     params = conv.init(jax.random.key(0))
-    kw = dict(src_perm=b.edge_src_perm, src_sorted=b.edge_src_sorted)
     sparse = conv.apply(params, b.node_feat, b.edge_src, b.edge_dst,
-                        b.edge_weight, b.node_cap, **kw)
+                        b.edge_weight, b.node_cap)
     dense = conv.apply(params, b.node_feat, b.edge_src, b.edge_dst,
                        b.edge_weight, b.node_cap,
-                       block_dense=(b.block_adj, b.block_cnt), **kw)
+                       block_dense=(b.block_adj, b.block_cnt))
     # compare on real rows only (padding rows differ: sparse leaves them 0
     # via segment ids; both should be 0 though — mask to be safe)
     m = np.asarray(b.node_mask)[:, None]

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bignn_tpu.data import HierarchicalSampler, make_synthetic_ddi
-from bignn_tpu.models import BiGNN, BiGNNConfig
-from bignn_tpu.train import MinibatchTrainer, TrainConfig
+from bignn.data import HierarchicalSampler, make_synthetic_ddi
+from bignn.models import BiGNN, BiGNNConfig
+from bignn.train import MinibatchTrainer, TrainConfig
 
 
 @pytest.fixture(scope="module")
@@ -49,7 +49,7 @@ def test_minibatch_vs_full_forward_consistency(ds):
     params = model.init(jax.random.key(0))
 
     # full-graph reference (single bucket)
-    from bignn_tpu.data import prepare_device_data
+    from bignn.data import prepare_device_data
     data = prepare_device_data(small, max_buckets=1)
     buckets = tuple(jax.tree.map(jnp.asarray, b) for b in data.bucketing.batches)
     gidx = tuple(jnp.asarray(i) for i in data.bucketing.graph_index)

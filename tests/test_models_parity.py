@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bignn_tpu.models import (
+from bignn.models import (
     AttentionReadout,
     BiGNN,
     BiGNNConfig,
@@ -16,7 +16,7 @@ from bignn_tpu.models import (
     GINConv,
     MLPScorer,
 )
-from bignn_tpu.oracle import (
+from bignn.oracle import (
     attention_readout_ref,
     bignn_forward_ref,
     dotattn_conv_ref,
@@ -26,7 +26,7 @@ from bignn_tpu.oracle import (
     mlp_score_ref,
     readout_ref,
 )
-from bignn_tpu.sparse import COOGraph, bucket_graphs, build_outer_graph, build_padded_batch
+from bignn.sparse import COOGraph, bucket_graphs, build_outer_graph, build_padded_batch
 
 
 def _graph_inputs(seed=0, n=12, e=40, f=8):
@@ -82,7 +82,7 @@ def test_readouts_parity():
     rng = np.random.default_rng(4)
     x = rng.normal(size=(20, 8)).astype(np.float32)
     gids = np.sort(rng.integers(0, 5, 20)).astype(np.int32)
-    from bignn_tpu.models import MaxReadout, MeanReadout, SumReadout
+    from bignn.models import MaxReadout, MeanReadout, SumReadout
 
     for kind, cls in [("sum", SumReadout), ("mean", MeanReadout), ("max", MaxReadout)]:
         ro = cls(8)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from bignn_tpu.data.molecules import (
+from bignn.data.molecules import (
     FEAT_DIM,
     SmilesError,
     build_dataset_from_smiles,
@@ -53,7 +53,7 @@ def test_features_shape_and_degree():
     g = smiles_to_graph("CC(C)C")  # central carbon degree 3
     assert g.node_feat.shape == (4, FEAT_DIM)
     # degree one-hot: central atom (index 1) has degree 3
-    from bignn_tpu.data.molecules import ELEMENTS
+    from bignn.data.molecules import ELEMENTS
     deg_slot = len(ELEMENTS) + 1 + 3
     assert g.node_feat[1, deg_slot] == 1.0
 
@@ -75,9 +75,9 @@ def test_build_dataset_from_smiles_trains():
     ds = build_dataset_from_smiles(smiles, edges)
     assert ds.num_drugs == 8 and ds.feat_dim == FEAT_DIM
 
-    from bignn_tpu.data import prepare_device_data
-    from bignn_tpu.models import BiGNN, BiGNNConfig
-    from bignn_tpu.train import Trainer, TrainConfig
+    from bignn.data import prepare_device_data
+    from bignn.models import BiGNN, BiGNNConfig
+    from bignn.train import Trainer, TrainConfig
 
     data = prepare_device_data(ds, max_buckets=2)
     tr = Trainer(BiGNN(BiGNNConfig.config1(feat_dim=ds.feat_dim)), data,

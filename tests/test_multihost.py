@@ -1,9 +1,9 @@
-"""Multi-host plumbing test (VERDICT round-1 item 3): two REAL processes,
+"""Multi-host plumbing test: two REAL processes,
 each with 2 fake CPU devices, form a 4-device dp=2 x graph=2 hybrid mesh via
 jax.distributed and run one P2 train step. Loss and the post-step parameter
 checksum must match a single-process run of the same topology, proving the
 global-array placement (parallel.global_put), hybrid mesh construction and
-the cross-DCN halo path compose correctly without TPU hardware."""
+the cross-host halo path compose correctly without accelerators."""
 
 import json
 import os

@@ -1,10 +1,10 @@
-"""Native C++ graph builder parity vs the NumPy path (bignn_tpu/native)."""
+"""Native C++ graph builder parity vs the NumPy path (bignn/native)."""
 
 import numpy as np
 import pytest
 
-from bignn_tpu import native
-from bignn_tpu.sparse import formats as F
+from bignn import native
+from bignn.sparse import formats as F
 
 
 def _rand_edges(n, e, seed=0):

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bignn_tpu.ops import (
+from bignn.ops import (
     gather_rows,
     sddmm,
     segment_max,
@@ -14,7 +14,7 @@ from bignn_tpu.ops import (
     segment_sum,
     spmm_sorted_coo,
 )
-from bignn_tpu.oracle.numpy_ref import segment_softmax_ref, spmm_ref
+from bignn.oracle.numpy_ref import segment_softmax_ref, spmm_ref
 
 
 def _sorted_segments(rng, n_rows, num_segments, with_oob=True):
@@ -110,9 +110,9 @@ def test_gather_rows_clips_oob():
 
 def test_permutation_scatter_rows_no_scatter_hlo():
     """out[idx[j]] = values[j] via inverse-permutation gather; neither the
-    forward nor the VJP may emit a scatter primitive (DESIGN.md §1 layout
-    contract — VERDICT r1 weak #3: embed_drugs used to `.at[].set`)."""
-    from bignn_tpu.ops.gather import permutation_scatter_rows
+    forward nor the VJP may emit a scatter primitive (embed_drugs places
+    bucket embeddings with it instead of `.at[].set`)."""
+    from bignn.ops.gather import permutation_scatter_rows
 
     rng = np.random.default_rng(0)
     n, d = 37, 5
@@ -149,8 +149,8 @@ def test_permutation_scatter_rows_no_scatter_hlo():
 
 def test_embed_drugs_matches_scatter_reference():
     """Multi-bucket embed_drugs (permutation-gather path) == zeros+scatter."""
-    from bignn_tpu.data import make_synthetic_ddi, prepare_device_data
-    from bignn_tpu.models import BiGNN, BiGNNConfig
+    from bignn.data import make_synthetic_ddi, prepare_device_data
+    from bignn.models import BiGNN, BiGNNConfig
 
     ds = make_synthetic_ddi(num_drugs=24, feat_dim=6, avg_degree=4.0,
                             min_atoms=4, max_atoms=16, seed=3)

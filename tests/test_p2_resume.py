@@ -1,4 +1,4 @@
-"""P2 mode as a first-class trainer (VERDICT r2 item 5): kill-and-resume
+"""P2 mode as a first-class trainer: kill-and-resume
 trajectory equality on the fake 8-device mesh, and best-params test-eval
 semantics."""
 
@@ -7,13 +7,13 @@ import dataclasses
 import jax
 import numpy as np
 
-from bignn_tpu.config import get_config
-from bignn_tpu.data import load_dataset
-from bignn_tpu.models import BiGNN
-from bignn_tpu.run import _run_p2
-from bignn_tpu.train import TrainConfig
-from bignn_tpu.train.checkpoint import CheckpointManager
-from bignn_tpu.utils import MetricLogger
+from bignn.config import get_config
+from bignn.data import load_dataset
+from bignn.models import BiGNN
+from bignn.run import _run_p2
+from bignn.train import TrainConfig
+from bignn.train.checkpoint import CheckpointManager
+from bignn.utils import MetricLogger
 
 
 def _setup(epochs):

@@ -1,17 +1,17 @@
-"""config5-large plan build (VERDICT r4 item 1): the vectorized
+"""config5-large plan build: the vectorized
 build_outer_partition at config-#4 node scale — 100K drugs, millions of
 outer edges — with the balance/roundtrip/memory invariants asserted.
 
-The full characterization artifact (8M train edges, sharded inner unions,
-fake-device steps, chip overhead) is docs/P2_SCALE_r5.txt
-(scripts/p2_scale_stats.py); this test keeps a CI-sized version of the
-same regime (same node count, dense-halo topology) permanently green.
+The full characterization (8M train edges, sharded inner unions,
+fake-device steps, card overhead) is scripts/p2_scale_stats.py; this test
+keeps a CI-sized version of the same regime (same node count, dense-halo
+topology) permanently green.
 """
 
 import numpy as np
 import pytest
 
-from bignn_tpu.parallel.partition import build_outer_partition
+from bignn.parallel.partition import build_outer_partition
 
 
 @pytest.mark.parametrize("shards", [8])
@@ -87,7 +87,7 @@ def test_vectorized_matches_bruteforce_small():
     plan = build_outer_partition(src, dst, N, G)
     B, S = plan.node_block, plan.halo_size
 
-    from bignn_tpu.sparse.formats import _build_sorted, symmetrize
+    from bignn.sparse.formats import _build_sorted, symmetrize
 
     s2, d2 = symmetrize(src.astype(np.int64), dst.astype(np.int64))
     s, d, w = _build_sorted(s2, d2, N, True, True)

@@ -7,16 +7,16 @@ import numpy as np
 import optax
 import pytest
 
-from bignn_tpu.data import make_synthetic_ddi, prepare_device_data
-from bignn_tpu.models import BiGNN, BiGNNConfig
-from bignn_tpu.parallel import (
+from bignn.data import make_synthetic_ddi, prepare_device_data
+from bignn.models import BiGNN, BiGNNConfig
+from bignn.parallel import (
     build_outer_partition,
     build_sharded_inner,
     device_put_plan,
     make_mesh,
     make_p2_train_step,
 )
-from bignn_tpu.train import Trainer, TrainConfig
+from bignn.train import Trainer, TrainConfig
 
 
 @pytest.mark.parametrize("dp,graph", [(2, 4), (1, 8), (4, 2)])
@@ -51,11 +51,11 @@ def test_p2_step_matches_single_device(dp, graph):
     inner = build_sharded_inner(ds.molecules, plan)
     mesh = make_mesh(dp=dp, graph=graph, devices=jax.devices()[: dp * graph])
     step = make_p2_train_step(model, optimizer, mesh, ds.num_drugs, neg_ratio=1)
-    inner_d, esrc, edst, ew, sidx, sperm, ssrt = device_put_plan(mesh, plan, inner)
+    inner_d, esrc, edst, ew, sidx = device_put_plan(mesh, plan, inner)
     with mesh:
         p_dist, _, loss_dist = step(
             params, opt_state, key, jnp.asarray(pos), jnp.asarray(mask),
-            inner_d, esrc, edst, ew, sidx, sperm, ssrt,
+            inner_d, esrc, edst, ew, sidx,
         )
 
     assert np.isclose(float(loss_ref), float(loss_dist), rtol=1e-4), (
@@ -81,13 +81,13 @@ def test_p2_step_full_bignn_runs():
     inner = build_sharded_inner(ds.molecules, plan)
     mesh = make_mesh(dp=2, graph=4, devices=jax.devices()[:8])
     step = make_p2_train_step(model, optimizer, mesh, ds.num_drugs)
-    inner_d, esrc, edst, ew, sidx, sperm, ssrt = device_put_plan(mesh, plan, inner)
+    inner_d, esrc, edst, ew, sidx = device_put_plan(mesh, plan, inner)
     rng = np.random.default_rng(3)
     pos = rng.integers(0, 24, (8, 2)).astype(np.int32)
     with mesh:
         p2, _, loss = step(
             params, opt_state, jax.random.key(5), jnp.asarray(pos),
-            jnp.ones(8, jnp.float32), inner_d, esrc, edst, ew, sidx, sperm, ssrt,
+            jnp.ones(8, jnp.float32), inner_d, esrc, edst, ew, sidx,
         )
     assert np.isfinite(float(loss))
     # params actually moved
@@ -98,29 +98,20 @@ def test_p2_step_full_bignn_runs():
     assert moved
 
 
-def test_multichip_step_pallas_interpret_backend():
-    """Pallas kernels inside shard_map (the real multi-chip TPU path) must
-    compile and run — regression for the shard_map check_vma rejection of
-    pallas_call outputs."""
-    import bignn_tpu.ops as ops
+def test_multichip_dryrun_four_devices():
+    """The four-device driver dry run (the p2 step vs one device, then dp
+    minibatch and dp device-sampled parity) on a plain 1x4 mesh — the path
+    chip_smoke.py --four-cards runs on four cards."""
     import __graft_entry__ as g
 
-    with ops.backend_scope("pallas_interpret"):
-        g.dryrun_multichip(4)
+    g.dryrun_multichip(4)
 
 
 @pytest.mark.parametrize("overlap", [False, True])
-def test_p2_step_halo_impl_pallas_matches_lax(overlap):
-    """r4 (VERDICT r3 item 3): the Pallas remote-DMA all-to-all is
-    selectable in the flagship p2 train step (halo_impl="pallas" /
-    run.py --halo-impl) and produces the same loss and updated params as
-    the lax collective. Runs under the pallas_interpret backend so the
-    kernel executes in the Pallas TPU simulator (real multi-device
-    protocol: barrier, RDMA pushes, per-source recv semaphores) on the
-    fake CPU mesh; AD crosses the exchange via its self-adjoint custom
-    VJP."""
-    from bignn_tpu.ops.dispatch import backend_scope
-
+def test_p2_step_full_bignn_matches_single_device(overlap):
+    """Full BI-GNN (GIN inner, GAT outer) p2 step on a 1x4 mesh: the halo
+    all-to-all (lax collective), with and without the overlap schedule,
+    gives the single-device trainer's loss."""
     ds = make_synthetic_ddi(num_drugs=32, feat_dim=8, avg_degree=6.0,
                             min_atoms=4, max_atoms=8, seed=4)
     model = BiGNN(BiGNNConfig.full_bignn(feat_dim=8, dim=16, heads=2))
@@ -128,8 +119,8 @@ def test_p2_step_halo_impl_pallas_matches_lax(overlap):
     params = model.init(jax.random.key(3))
     opt_state = optimizer.init(params)
     rng = np.random.default_rng(5)
-    pos = rng.integers(0, 32, (8, 2)).astype(np.int32)
-    mask = np.ones(8, np.float32)
+    pos = jnp.asarray(rng.integers(0, 32, (8, 2)).astype(np.int32))
+    mask = jnp.ones(8, jnp.float32)
     key = jax.random.key(11)
 
     train_edges = ds.split_edges("train")
@@ -137,30 +128,23 @@ def test_p2_step_halo_impl_pallas_matches_lax(overlap):
                                  ds.num_drugs, 4)
     inner = build_sharded_inner(ds.molecules, plan, split_boundary=overlap)
     mesh = make_mesh(dp=1, graph=4, devices=jax.devices()[:4])
-    inner_d, esrc, edst, ew, sidx, sperm, ssrt = device_put_plan(mesh, plan, inner)
+    inner_d, esrc, edst, ew, sidx = device_put_plan(mesh, plan, inner)
+    step = make_p2_train_step(model, optimizer, mesh, ds.num_drugs,
+                              neg_ratio=1, overlap=overlap)
+    with mesh:
+        _, _, loss = step(params, opt_state, key, pos, mask,
+                          inner_d, esrc, edst, ew, sidx)
 
-    results = {}
-    with backend_scope("pallas_interpret"):
-        for impl in ("lax", "pallas"):
-            step = make_p2_train_step(
-                model, optimizer, mesh, ds.num_drugs, neg_ratio=1,
-                overlap=overlap, halo_impl=impl)
-            with mesh:
-                p_new, _, loss = step(
-                    params, opt_state, key, jnp.asarray(pos),
-                    jnp.asarray(mask), inner_d, esrc, edst, ew, sidx, sperm, ssrt)
-            results[impl] = (p_new, float(loss))
-
-    assert np.isclose(results["lax"][1], results["pallas"][1], rtol=1e-5)
-    for a, b in zip(jax.tree.leaves(results["lax"][0]),
-                    jax.tree.leaves(results["pallas"][0])):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-5, atol=1e-6)
+    ref = Trainer(model, prepare_device_data(ds, max_buckets=1),
+                  TrainConfig(lr=1e-3, neg_ratio=1, seed=0))
+    _, _, loss_ref = ref._train_step(params, opt_state, key, pos, mask)
+    assert np.isclose(float(loss), float(loss_ref), rtol=2e-3), (
+        float(loss), float(loss_ref))
 
 
 @pytest.mark.parametrize("overlap", [False, True])
 def test_p2_step_remat_inner_matches(overlap):
-    """remat=True (r5, jax.checkpoint over the inner encode and the
+    """remat=True (jax.checkpoint over the inner encode and the
     outer attention temps) changes activation memory only — loss and
     updated params must equal the non-remat step exactly."""
     ds = make_synthetic_ddi(num_drugs=40, feat_dim=8, avg_degree=6.0,
@@ -180,7 +164,7 @@ def test_p2_step_remat_inner_matches(overlap):
                                  ds.num_drugs, 4)
     inner = build_sharded_inner(ds.molecules, plan, split_boundary=overlap)
     mesh = make_mesh(dp=2, graph=4, devices=jax.devices()[:8])
-    inner_d, esrc, edst, ew, sidx, sperm, ssrt = device_put_plan(
+    inner_d, esrc, edst, ew, sidx = device_put_plan(
         mesh, plan, inner)
 
     def run(remat):
@@ -190,7 +174,7 @@ def test_p2_step_remat_inner_matches(overlap):
         with mesh:
             p, _, loss = step(
                 params, opt_state, key, jnp.asarray(pos), jnp.asarray(mask),
-                inner_d, esrc, edst, ew, sidx, sperm, ssrt)
+                inner_d, esrc, edst, ew, sidx)
         return p, float(loss)
 
     p0, l0 = run(False)

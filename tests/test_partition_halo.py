@@ -9,10 +9,10 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, PartitionSpec as P
 
-from bignn_tpu.models import BiGNN, BiGNNConfig
-from bignn_tpu.parallel.halo import dist_outer_forward
-from bignn_tpu.parallel.partition import build_outer_partition
-from bignn_tpu.sparse import build_outer_graph
+from bignn.models import BiGNN, BiGNNConfig
+from bignn.parallel.halo import dist_outer_forward
+from bignn.parallel.partition import build_outer_partition
+from bignn.sparse import build_outer_graph
 
 
 def _edges(n, e, seed=0):

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from bignn_tpu.config import get_config
-from bignn_tpu.run import main
+from bignn.config import get_config
+from bignn.run import main
 
 
 def test_config_registry():
@@ -30,7 +30,7 @@ def test_run_config1_end_to_end(tmp_path):
         summary = json.load(f)
     assert "test_auc" in summary
 
-    from bignn_tpu.train.checkpoint import CheckpointManager
+    from bignn.train.checkpoint import CheckpointManager
 
     cm = CheckpointManager(str(tmp_path / "ckpt"))
     assert cm.latest_step() is not None
@@ -43,18 +43,18 @@ def test_run_p2_mode(tmp_path):
     # config5 shape on the fake 8-device mesh, tiny sizes
     import dataclasses
 
-    from bignn_tpu.config import get_config
+    from bignn.config import get_config
 
     res = main([
         "--config", "config5", "--epochs", "1", "--batch-size", "64",
     ]) if False else None
     # config5 uses drugbank-scale data (slow on CPU); drive the p2 branch
     # through run._run_p2 with a small config instead
-    from bignn_tpu.data import load_dataset
-    from bignn_tpu.models import BiGNN
-    from bignn_tpu.run import _run_p2
-    from bignn_tpu.train import TrainConfig
-    from bignn_tpu.utils import MetricLogger
+    from bignn.data import load_dataset
+    from bignn.models import BiGNN
+    from bignn.run import _run_p2
+    from bignn.train import TrainConfig
+    from bignn.utils import MetricLogger
 
     cfg = get_config("config5")
     cfg = dataclasses.replace(
@@ -76,7 +76,7 @@ def test_run_p2_mode(tmp_path):
 
 
 def test_run_cli_dp_mode(tmp_path):
-    """P1 from the CLI (VERDICT r1 weak #9): --dp shards pair minibatches
+    """P1 from the CLI: --dp shards pair minibatches
     over a dp-only mesh in both full-graph and minibatch modes; the
     trajectory equality vs single-device is covered by tests/test_dp.py and
     tests/test_dp_minibatch.py — here we prove the wiring end-to-end."""
@@ -97,7 +97,7 @@ def test_run_cli_device_sample(tmp_path):
     """--device-sample routes minibatch training through the device-resident
     sampler (data/device_sampler.py); config #4 defaults to it in the
     registry (config.py device_sample=True)."""
-    from bignn_tpu.config import get_config
+    from bignn.config import get_config
 
     assert get_config("config4").device_sample
     res = main([
@@ -109,7 +109,7 @@ def test_run_cli_device_sample(tmp_path):
 
 def test_run_cli_exact_eval(tmp_path):
     """--exact-eval (r5): minibatch runs additionally report
-    estimator-free full-propagation final metrics (DESIGN.md §3.9)."""
+    estimator-free full-propagation final metrics (DESIGN.md §5)."""
     res = main([
         "--config", "config3", "--epochs", "1", "--batch-size", "64",
         "--exact-eval", "--run-dir", str(tmp_path / "ex"),

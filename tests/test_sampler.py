@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bignn_tpu.data import EdgeMinibatchSampler, make_training_pairs, sample_negative_pairs
+from bignn.data import EdgeMinibatchSampler, make_training_pairs, sample_negative_pairs
 
 
 def test_negative_sampler_deterministic():

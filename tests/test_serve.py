@@ -1,4 +1,4 @@
-"""Serving surface (bignn_tpu/serve.py): precomputed-embedding scorer must
+"""Serving surface (bignn/serve.py): precomputed-embedding scorer must
 match the trainer's exact scores, top-k must rank consistently, and the
 checkpoint-loading CLI path must work end to end."""
 
@@ -7,10 +7,10 @@ import json
 import numpy as np
 import pytest
 
-from bignn_tpu.data import load_dataset
-from bignn_tpu.models import BiGNN, BiGNNConfig
-from bignn_tpu.serve import Scorer, main as serve_main
-from bignn_tpu.train import MinibatchTrainer, TrainConfig
+from bignn.data import load_dataset
+from bignn.models import BiGNN, BiGNNConfig
+from bignn.serve import Scorer, main as serve_main
+from bignn.train import MinibatchTrainer, TrainConfig
 
 
 @pytest.fixture(scope="module")
@@ -50,8 +50,8 @@ def test_top_k_ranks_consistently(trained):
 
 
 def test_serve_cli_from_checkpoint(tmp_path):
-    from bignn_tpu.config import get_config
-    from bignn_tpu.run import main as run_main
+    from bignn.config import get_config
+    from bignn.run import main as run_main
 
     run_main([
         "--config", "config1", "--epochs", "1", "--batch-size", "128",
@@ -97,7 +97,7 @@ def test_refresh_swaps_params_live(trained):
 
 
 def test_top_k_exclude_known(trained):
-    """r4 (VERDICT r3 weak 6): exclude_known=True masks the query drug's
+    """r4: exclude_known=True masks the query drug's
     train/val partners, so rankings surface NEW candidates; unknown pairs'
     relative order is unchanged."""
     ds, model, tr, params = trained
@@ -143,7 +143,7 @@ def test_one_vs_all_matches_pairwise():
     import jax
     import jax.numpy as jnp
 
-    from bignn_tpu.models.scorer import DotScorer, MLPScorer
+    from bignn.models.scorer import DotScorer, MLPScorer
 
     rng = np.random.default_rng(0)
     emb = jnp.asarray(rng.normal(size=(37, 16)).astype(np.float32))

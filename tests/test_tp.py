@@ -8,9 +8,9 @@ import numpy as np
 import optax
 import pytest
 
-from bignn_tpu.data import make_synthetic_ddi, prepare_device_data
-from bignn_tpu.models import BiGNN, BiGNNConfig
-from bignn_tpu.parallel import (
+from bignn.data import make_synthetic_ddi, prepare_device_data
+from bignn.models import BiGNN, BiGNNConfig
+from bignn.parallel import (
     make_mesh,
     shard_params_tp,
     tp_param_specs,
@@ -78,8 +78,8 @@ def test_tp_matches_single_device(setup, dp, tp):
     # single-device reference (same math, same PRNG)
     mesh1 = make_mesh(dp=1, tp=1, graph=1, devices=jax.devices()[:1])
     del mesh1  # reference runs unsharded
-    from bignn_tpu.models.loss import bce_with_logits_loss
-    from bignn_tpu.data.sampler import sample_negative_pairs
+    from bignn.models.loss import bce_with_logits_loss
+    from bignn.data.sampler import sample_negative_pairs
 
     def ref_loss(p, k):
         neg = sample_negative_pairs(k, pos, ds.num_drugs, 1)
